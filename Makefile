@@ -29,14 +29,12 @@ derivations:
 	$(PYTHON) derivations/betabinomial.py
 	$(PYTHON) derivations/clustering.py
 
-# per-round machine-readable artifact of the 2-process gloo equality check
-# (MULTIHOST_r{N}.json, sibling of the driver's MULTICHIP artifact)
-multihost-artifact:
-	JAX_PLATFORMS=cpu $(PYTHON) record_multihost.py
+smoke:
+	$(PYTHON) chip_smoke.py
 
 clean:
 	rm -rf build .pytest_cache
 	find . -name __pycache__ -type d | xargs rm -rf
 
 .PHONY: all ext proto test test-fast bench bench-suite demo derivations \
-	multihost-artifact clean
+	smoke clean

@@ -1,5 +1,5 @@
 """Log-gamma accuracy audit (reference derivations/loggamma.py generated the
-per-octave 5th-order polynomial tables for fast_lgamma; XLA:TPU ships fast
+per-octave 5th-order polynomial tables for fast_lgamma; XLA ships fast
 vectorized lgamma so no tables are generated here — instead this validates
 that the hardware implementation meets the reference's tolerance envelope
 of 1e-3 relative over the ranges the models use).

@@ -1,7 +1,7 @@
-"""distributions_tpu: a TPU-native probabilistic-inference engine.
+"""distributions_tpu: a JAX-native probabilistic-inference engine.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of
-`forcedotcom/distributions` (reference: /root/reference): special numerical
+A from-scratch JAX/XLA implementation of the capabilities of
+`forcedotcom/distributions` (the reference): special numerical
 functions, samplers, conjugate component models, clustering priors
 (Pitman-Yor/CRP and low-entropy MDL), and vectorized mixture machinery with
 collapsed Gibbs sampling as the core kernel.

@@ -74,6 +74,8 @@ def main():
                         choices=sorted(COMMANDS) + ['model_api'])
     parser.add_argument('args', nargs='*')
     ns = parser.parse_args()
+    from distributions_tpu import runtime
+    runtime.enable_compile_cache()
     if ns.command == 'model_api':
         for name in ns.args or sorted(MODULES):
             model_api(name)

@@ -3,7 +3,7 @@
 Semantics match the reference (include/distributions/clustering.hpp:44-331,
 src/clustering.cc:66-283, distributions/dbg/clustering.py:33-302).
 
-TPU-native formulation
+Vectorized formulation
 ----------------------
 The reference's `score_add_value(group_size, nonempty_group_count,
 sample_size, empty_group_count)` is a scalar; here `score_add_value` accepts
@@ -370,10 +370,10 @@ def py_sample_assignments_stick(key, model, size, capacity=1024):
     """Vectorized Pitman-Yor assignment sampling via stick-breaking.
 
     The sequential CRP scan (`py_sample_assignments`, reference
-    src/clustering.cc:69-142) is an R-step data-dependent chain — the
-    one shape a TPU cannot take at R ~ 1e6 (the remote compiler wedges
-    on million-step scans).  The TPU-native answer uses the Pitman-Yor
-    stick-breaking (GEM) representation instead:
+    src/clustering.cc:69-142) is an R-step data-dependent chain — a
+    million-step scan at R ~ 1e6, slow to compile and to run.  The
+    batched answer uses the Pitman-Yor stick-breaking (GEM)
+    representation instead:
 
         V_k ~ Beta(1 - d, alpha + (k+1) d),   k = 0, 1, ...
         w_k = V_k prod_{j<k} (1 - V_j)
@@ -398,9 +398,9 @@ def py_sample_assignments_stick(key, model, size, capacity=1024):
     logw = jnp.log(v) + jnp.concatenate(
         [jnp.zeros(1), jnp.cumsum(jnp.log1p(-v)[:-1])])
     # inverse-CDF draw: one [capacity] cumsum, then a vectorized
-    # compare-all search ([size, capacity] cheap compares — measured
-    # faster on TPU than both jax.random.categorical's gumbel matrix
-    # (~8 ops/cell) and searchsorted's default binary-search scan)
+    # compare-all search ([size, capacity] cheap compares instead of
+    # jax.random.categorical's gumbel matrix (~8 ops/cell) or
+    # searchsorted's default binary-search scan)
     cdf = jnp.cumsum(jnp.exp(logw - logsumexp(logw)))
     cdf = cdf.at[capacity - 1].set(1.0 + 1e-6)
     u = jax.random.uniform(ka, (size,))

@@ -3,7 +3,7 @@ reference's scalar API and packed Mixture drivers
 (reference lp/clustering.pyx:66-329, include/distributions/mixture.hpp:49-163).
 
 The packed driver here is host-side (numpy): it exists for API
-compatibility with reference-style per-row loops.  The TPU-resident path is
+compatibility with reference-style per-row loops.  The device-resident path is
 distributions_tpu.mixture + ops.gibbs.
 """
 

@@ -6,7 +6,6 @@ env vars).  Everything is env-var driven and read once at import:
                                — gates debug.validate_* checks
   DISTRIBUTIONS_TPU_DPD_CAP    default dense value capacity for dpd
   DISTRIBUTIONS_TPU_BLOCK      default Gibbs tile size
-  DISTRIBUTIONS_TPU_KERNEL_ROWS  pallas kernel row-block size
 """
 
 import os
@@ -22,4 +21,3 @@ def _int_env(name, default):
 DEBUG_LEVEL = _int_env('DISTRIBUTIONS_TPU_DEBUG', 0)
 DPD_CAPACITY = _int_env('DISTRIBUTIONS_TPU_DPD_CAP', 64)
 DEFAULT_BLOCK = _int_env('DISTRIBUTIONS_TPU_BLOCK', 8192)
-KERNEL_ROWS = _int_env('DISTRIBUTIONS_TPU_KERNEL_ROWS', 512)

@@ -2,7 +2,7 @@
 (independent of the JAX core models/dpd.py; semantics of reference
 dbg/models/dpd.py:28-290).
 
-Where the core uses a fixed-capacity dense value table (TPU layout), this
+Where the core uses a fixed-capacity dense value table (device layout), this
 flavor keeps REAL sparse dicts — the reference's SparseCounter layout
 (dpd.hpp:155-272) — so the flavor-agreement test cross-checks the dense
 masked arithmetic against straightforward sparse bookkeeping.  Shared

@@ -4,7 +4,7 @@
 The reference interleaves single-row adds and removes on an
 (add_rate=passes, remove_rate=passes-1) schedule so each datum is assigned,
 resampled ~passes times, and the working set sweeps the dataset.  The
-TPU-native version works in row *tiles*: the same schedule at tile
+batched version works in row *tiles*: the same schedule at tile
 granularity, with all adds/removes as segment-sum tile updates."""
 
 from functools import partial

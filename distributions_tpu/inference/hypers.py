@@ -4,7 +4,7 @@ hyperparameters and the clustering prior.
 The reference exposes the primitive (`score_data_grid`, dd.hpp:259-287,
 mixture.hpp:238-247) but no driver; downstream systems grid-search each
 feature's hyperparameters against the current groups every few sweeps.
-This driver does that TPU-natively: one vmap scores the whole grid, one
+This driver does that in batch: one vmap scores the whole grid, one
 categorical draw (or argmax) picks the new setting.
 """
 

@@ -1,7 +1,7 @@
 """ADVI: mean-field variational inference over any log-prob pytree graph.
 
 Shares the log-prob surface of hmc.py (inference.logprob) — the reference
-has no VI backend; this is new TPU-native capability from BASELINE.json's
+has no VI backend; this is new capability from BASELINE.json's
 north star (NUTS/HMC, VI, SMC over one log-prob graph)."""
 
 from functools import partial

@@ -104,16 +104,23 @@ def score_value(shared, group, value):
 
 def score_value_batch(shared, group, values):
     """[K] group x [B] values -> [B, K] (cached-coefficient layout of
-    reference bnb.hpp:305-326)."""
+    reference bnb.hpp:305-326):
+
+        lgamma(a+b) + lgamma(a+r) - lgamma(a) - lgamma(b)
+          + lgamma(b+v) - lgamma(a+b+r+v)
+        = lgamma_ratio(a, r) + lgamma_ratio(b, v) - lgamma_ratio(a+b, r+v)
+
+    for the posterior (a, b): each term stays O((r + v) log(a + b)), so no
+    large-count cancellation remains."""
+    from distributions_tpu.special import lgamma_ratio
     post = plus_group(shared, group)
     pa = post.alpha.astype(jnp.float32)  # [K]
     pb = post.beta.astype(jnp.float32)   # [K]
-    alpha = pa + shared.r                # [K]
-    const = (gammaln(pa + pb) + gammaln(alpha)
-             - gammaln(pa) - gammaln(pb))           # [K]
+    r = jnp.asarray(shared.r, jnp.float32)
+    const = lgamma_ratio(pa, r)                     # [K]
     v = jnp.asarray(values, jnp.float32)[:, None]   # [B, 1]
-    beta = pb[None, :] + v
-    return const[None, :] + gammaln(beta) - gammaln(beta + alpha[None, :])
+    return (const[None, :] + lgamma_ratio(pb[None, :], v)
+            - lgamma_ratio((pa + pb)[None, :], r + v))
 
 
 def score_data(shared, group):

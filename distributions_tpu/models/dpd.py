@@ -7,8 +7,8 @@ betas, counts} where the *Shared mutates during inference* — on first sight
 of a value a new stick beta ~ beta0 * Beta(1, gamma) is broken off
 (dpd.hpp:59-101); Group is a sparse counter.
 
-TPU-native layout
------------------
+Dense device layout
+-------------------
 The reference's sparse hash maps (SparseCounter, dpd.hpp:155-272) become a
 fixed-capacity dense value table of static size V:
 

@@ -116,15 +116,19 @@ def score_value(shared, group, value):
 def score_value_batch(shared, group, values):
     """[K] group x [B] values -> [B, K]; the cached-coefficient trick of
     reference src/models/gp.cc:32-68 expressed as broadcasting: score(y, k) =
-    lgamma(alpha_k + y) + coeff_k * y + const_k - log y!."""
+    lgamma_ratio(alpha_k, y) + coeff_k * y + const_k - log y!.
+
+    Both large-count cancellations are avoided: lgamma(alpha + y) -
+    lgamma(alpha) goes through special.lgamma_ratio, and
+    alpha * (log(b) - log1p(b)) is computed as -alpha * log1p(1/b)."""
+    from distributions_tpu.special import lgamma_ratio
     post = plus_group(shared, group)
     alpha = post.alpha.astype(jnp.float32)          # [K]
     inv_beta = post.inv_beta.astype(jnp.float32)    # [K]
-    const = -gammaln(alpha) + alpha * (
-        jnp.log(inv_beta) - jnp.log1p(inv_beta))    # [K]
+    const = -alpha * jnp.log1p(1.0 / inv_beta)      # [K]
     coeff = -jnp.log1p(inv_beta)                    # [K]
     y = jnp.asarray(values, jnp.float32)[:, None]   # [B, 1]
-    return (gammaln(alpha[None, :] + y) + coeff[None, :] * y
+    return (lgamma_ratio(alpha[None, :], y) + coeff[None, :] * y
             + const[None, :] - log_factorial(y))
 
 

@@ -10,8 +10,8 @@ analysis of the Gaussian distribution" (2007).
 The reference's hand-vectorized ValueScorer keeps 4 parallel VectorFloats
 {score, log_coeff, precision, mean} (src/models/nich.cc:33-67); here the same
 cached quantities appear as [K] intermediates in one fused XLA graph
-(`score_value_batch`), and the flagship Pallas sweep kernel fuses them with
-the categorical draw (see ops/).
+(`score_value_batch`), which XLA fuses with the categorical draw of the
+blocked sweep (see ops/).
 """
 
 from typing import NamedTuple

@@ -1,1 +1,1 @@
-"""Fused sweep kernels (sequential scan + blocked tiles + Pallas)."""
+"""Collapsed-Gibbs sweeps (sequential scan, blocked tiles) and moves."""

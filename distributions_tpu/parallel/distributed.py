@@ -2,10 +2,10 @@
 per-host data loading.
 
 The reference is a single-process library (reference SURVEY §2.4 — no
-NCCL/MPI/anything); this module is the TPU-native scaling layer it never
+NCCL/MPI/anything); this module is the multi-host scaling layer it never
 had: `jax.distributed.initialize` for the process group, a global mesh
 whose 'rows' (data) axis spans hosts — so row-tile suff-stat psums ride
-ICI within a slice and DCN across slices — and
+the fast links within a host and the network across hosts — and
 `jax.make_array_from_process_local_data` for loading each host's row
 shard without ever materializing the global dataset on one host.
 
@@ -32,10 +32,8 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None):
     """Join (or create) the multi-host process group.
 
-    On TPU pods all arguments are auto-detected from the environment and
-    this is just `jax.distributed.initialize()`.  For CPU process groups
-    (testing, or CPU-only fleets) pass coordinator/num_processes/
-    process_id explicitly; gloo cross-process collectives are selected
+    Pass coordinator_address (`host:port`), num_processes and process_id
+    explicitly (GPU hosts and CPU process groups alike); gloo cross-process collectives are selected
     automatically when the platform is CPU.
     """
     if jax.config.jax_platforms and 'cpu' in jax.config.jax_platforms:
@@ -69,8 +67,8 @@ def make_global_mesh(axis_name=ROWS):
 def make_global_mesh_2d(components_per_host=None):
     """2-D ('rows' x 'components') global mesh: components sharded over
     the devices WITHIN each host (collectives on the component axis —
-    score-max reductions per tile — ride ICI), rows over hosts (DCN
-    carries only the per-tile suff-stat psums)."""
+    score-max reductions per tile — stay on the host's own links), rows
+    over hosts (the network carries only the per-tile suff-stat psums)."""
     n_local = jax.local_device_count()
     n_comp = components_per_host or n_local
     assert n_local % n_comp == 0, (n_local, n_comp)

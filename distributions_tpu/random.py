@@ -1,4 +1,4 @@
-"""Samplers and density functions (TPU-native analog of the reference's
+"""Samplers and density functions (JAX analog of the reference's
 include/distributions/random.hpp + distributions/dbg/random.py).
 
 Entropy discipline

@@ -1,10 +1,10 @@
-"""Special numerical functions (TPU-native analog of the reference's
+"""Special numerical functions (JAX analog of the reference's
 include/distributions/special.hpp + distributions/dbg/special.py).
 
 The reference ships hand-rolled fast approximations (`fast_log` ICSI table,
 `fast_lgamma` per-octave 5th-order polynomials, `fast_log_factorial` table;
 reference special.hpp:53-214) because 2014-era CPUs lacked fast vectorized
-transcendentals.  XLA:TPU lowers `log`/`exp`/`lgamma` to fast vectorized VPU
+transcendentals.  XLA lowers `log`/`exp`/`lgamma` to fast vectorized
 code and fuses them into surrounding elementwise graphs, so here each function
 is a thin, vectorized jnp definition; the names `fast_*` are kept as aliases
 for API parity.  Everything is batched: scalars, vectors, or [rows, K]

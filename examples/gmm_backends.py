@@ -30,6 +30,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update('jax_platforms', 'cpu')
+    from distributions_tpu import runtime
+    runtime.enable_compile_cache()
     import jax.numpy as jnp
 
     from distributions_tpu import clustering, mixture as mx

@@ -1,4 +1,4 @@
-"""DPMM image-compression demo: the TPU-native analog of the reference's
+"""DPMM image-compression demo: the JAX analog of the reference's
 canonical example (reference examples/mixture/main.py:28-377).
 
 Samples 2-D points from an image's intensity distribution, fits a
@@ -238,6 +238,8 @@ def main():
     parser.add_argument('--passes', type=int, default=PASSES)
     parser.add_argument('--seed', type=int, default=0)
     args = parser.parse_args()
+    from distributions_tpu import runtime
+    runtime.enable_compile_cache()
 
     key = jax.random.PRNGKey(args.seed)
     key, sub = jax.random.split(key)

@@ -24,7 +24,7 @@ ext_modules = [
 setup(
     name='distributions_tpu',
     version='0.1.0',
-    description=('TPU-native probabilistic-inference engine: conjugate '
+    description=('JAX-native probabilistic-inference engine: conjugate '
                  'models, clustering priors, collapsed Gibbs / SMC / HMC '
                  'on JAX'),
     packages=find_packages(include=['distributions_tpu*']),

@@ -4,7 +4,7 @@ records score_value / score_data / sufficient statistics on pinned inputs
 into dbg_golden.json.
 
 This executes the reference's own code (no transcription) so the checked-in
-numbers are an independent oracle for the TPU implementation: a sign or
+numbers are an independent oracle for the JAX implementation: a sign or
 exponent slip in any transcribed formula fails tests/test_golden.py even
 though every internal consistency test would still pass.
 

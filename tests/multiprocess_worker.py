@@ -9,7 +9,7 @@ Run: python multiprocess_worker.py <pid> <nproc> <port> <devs> <out.npz> \
 mode: 'sweep' (default) — direct row-sharded sweeps over the 1-D global
 mesh; 'runner' — the production runner (inference.runner.run_gibbs) on
 the global mesh with process-0 checkpointing; '2d' — rows over hosts
-(DCN) x components within hosts (ICI) via make_global_mesh_2d +
+x components within hosts via make_global_mesh_2d +
 sharded_sweep_2d.
 """
 
@@ -112,7 +112,7 @@ def mode_runner():
 
 
 def mode_2d():
-    """rows over hosts (DCN) x components within hosts (ICI)."""
+    """rows over hosts x components within hosts."""
     R = 64
     spec, shareds, values, assignments, py, mesh1d = _setup(R)
     mesh = distributed.make_global_mesh_2d()

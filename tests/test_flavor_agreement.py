@@ -1,5 +1,5 @@
 """Flavor agreement: the independent float64 numpy/scipy `hp` flavor must
-agree with the JAX core on every model x example (the TPU analog of
+agree with the JAX core on every model x example (the analog of
 reference tests/test_model_flavors.py:40-136, which pushed the same data
 through dbg/hp/lp and asserted suff stats, score_value, and score_data
 agree).

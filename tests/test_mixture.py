@@ -266,41 +266,6 @@ def test_heterogeneous_blocks():
     assert np.isfinite(float(mx.score_data(spec, PY, shareds, state)))
 
 
-def test_xla_table_sweep_matches_blocked():
-    """sweep_blocked_pallas_mixed(backend='xla') scores discrete blocks via
-    per-tile [V, C] tables + one-hot matmuls; a one-hot matmul is an exact
-    gather, so the draws must equal sweep_blocked's bitwise."""
-    rng = np.random.RandomState(0)
-    R, cap = 512, 64
-    spec = mx.make_spec([(nich, 1), (gp, 2), (bb, 1)], capacity=cap,
-                        empties=1)
-    shareds = (
-        nich.shared_from_dict({'mu': 0., 'kappa': .1, 'sigmasq': 1.,
-                               'nu': 1.}),
-        gp.shared_from_dict({'alpha': 1.0, 'inv_beta': 0.5}),
-        bb.shared_from_dict({'alpha': 0.5, 'beta': 0.5}),
-    )
-    labels = rng.randint(0, 3, R)
-    values = (
-        jnp.asarray(np.array([[-2.], [0.], [2.]])[labels]
-                    + 0.4 * rng.randn(R, 1), jnp.float32),
-        jnp.asarray(np.stack([rng.poisson(np.where(labels == 0, 2., 9.)),
-                              rng.poisson(3 + 2 * labels)], axis=1)),
-        jnp.asarray((rng.rand(R) < 0.3)[:, None]),
-    )
-    assignments = jnp.asarray(labels, jnp.int32)
-    state = mx.state_from_assignments(spec, PY, shareds, values, assignments)
-    key = jax.random.PRNGKey(0)
-    st_t, an_t = gibbs.sweep_blocked_pallas_mixed(
-        spec, PY, shareds, state, values, assignments, 128, key,
-        backend='xla')
-    st_x, an_x = gibbs.sweep_blocked(
-        spec, PY, shareds, state, values, assignments, 128, key=key)
-    np.testing.assert_array_equal(np.asarray(an_t), np.asarray(an_x))
-    np.testing.assert_array_equal(np.asarray(st_t.counts),
-                                  np.asarray(st_x.counts))
-
-
 def test_log_predictive_matches_score_data_chain_rule():
     """log_predictive == logsumexp_k [score_data(state + x at k)
     - score_data(state)] (the reference's chain-rule identity,
@@ -335,9 +300,9 @@ def test_log_predictive_matches_score_data_chain_rule():
 
 def test_exact_onehot_matmul_is_exact():
     """The hi/mid/lo bf16 split contraction must equal a float64 reference
-    to within one f32 ulp of each output (on TPU the plain f32 matmul is
-    ONE bf16 pass, ~2e-3 relative — this helper is what keeps cached stat
-    sums exact; see models/base.exact_onehot_matmul)."""
+    to within one f32 ulp of each output (a default-precision f32 matmul
+    may run in TF32 on the GPU — this helper is what keeps the stat sums
+    exact; see models/base.exact_onehot_matmul)."""
     import numpy as np
     from distributions_tpu.models import base
 
@@ -364,14 +329,13 @@ def test_exact_onehot_matmul_is_exact():
     np.testing.assert_array_equal(got_i, want_i.astype(np.float32))
 
 
-def test_tile_sums_fast_chunked_matches_unchunked(monkeypatch):
+def test_tile_deltas_fast_chunked_matches_unchunked(monkeypatch):
     """The row-chunked one-hot contraction (large-capacity regimes where
-    a [C, B] one-hot exceeds the compile limit) produces the SAME cached
-    sums as the single contraction — counts exactly, stat sums to f32
-    accumulation order."""
+    a [C, B] one-hot would be too large) gives the SAME tile deltas as
+    the single contraction — counts exactly, stats to f32 accumulation
+    order."""
     from distributions_tpu import mixture as mx
     from distributions_tpu.models import nich
-    from distributions_tpu import clustering
 
     rng = np.random.RandomState(0)
     spec = mx.make_spec([(nich, 2)], capacity=16, empties=1)
@@ -382,12 +346,13 @@ def test_tile_sums_fast_chunked_matches_unchunked(monkeypatch):
     an = jnp.asarray(rng.randint(0, 12, B), jnp.int32)
     rs = mx.precompute_row_stats(spec, shareds, values)
 
-    cd_a, sums_a = mx.tile_sums_fast(spec, shareds, rs, an)
-    monkeypatch.setattr(mx, 'ONEHOT_CHUNK_LIMIT', 16 * 1500)  # 2 chunks + tail
-    cd_b, sums_b = mx.tile_sums_fast(spec, shareds, rs, an)
+    cd_a, tiles_a = mx.tile_deltas_fast(spec, shareds, rs, an)
+    monkeypatch.setattr(base, 'ONEHOT_CHUNK_LIMIT', 16 * 1500)  # 2 chunks + tail
+    cd_b, tiles_b = mx.tile_deltas_fast(spec, shareds, rs, an)
 
     np.testing.assert_array_equal(np.asarray(cd_a), np.asarray(cd_b))
-    for a, b in zip(sums_a, sums_b):
+    for a, b in zip(jax.tree_util.tree_leaves(tiles_a),
+                    jax.tree_util.tree_leaves(tiles_b)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-6, atol=1e-4)
     # counts agree with bincount ground truth

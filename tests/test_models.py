@@ -1,5 +1,5 @@
 """Generic per-model test harness, driven by each model's EXAMPLES metadata
-(the TPU analog of reference distributions/tests/test_models.py:63-594).
+(the analog of reference distributions/tests/test_models.py:63-594).
 
 Identities tested per model x example:
 - dict load/dump round trips
@@ -389,12 +389,9 @@ def test_sample_group_gof(name, example_idx):
 
 def test_nich_per_column_shareds():
     """Per-column hyperparameters within one nich block: leaves shaped
-    [cols] broadcast through groups, scoring, and the fused coefficient
-    path; a block mixing distinct nu values is rejected by the fused
-    coeffs (the product form takes one log per block) with a pointer to
-    cols=1 blocks."""
+    [cols] broadcast through groups and scoring, equal to separate
+    single-column blocks."""
     from distributions_tpu.models import nich
-    from distributions_tpu.ops import pallas_kernels as pk
 
     sh = nich.Shared(mu=jnp.asarray([0.0, 5.0]),
                      kappa=jnp.asarray([1.0, 0.1]),
@@ -414,13 +411,3 @@ def test_nich_per_column_shareds():
             nich.score_value(shj, gj, vals[0, j:j + 1])).sum(-1))
     np.testing.assert_allclose(combined, parts[0] + parts[1],
                                rtol=1e-5, atol=1e-5)
-
-    # fused coeffs accept column-constant nu ...
-    co = pk.nich_coeffs_v2(sh, g)
-    assert co.shape[0] == 2 + 2 * 2
-    # ... and reject distinct per-column nu
-    sh_bad = sh._replace(nu=jnp.asarray([1.0, 2.0]))
-    g_bad = nich.from_values_grouped(
-        sh_bad, vals, jnp.zeros(10, jnp.int32), 4)
-    with pytest.raises(ValueError, match='column-constant nu'):
-        pk.nich_coeffs_v2(sh_bad, g_bad)

@@ -4,7 +4,7 @@ assert the row-sharded sweep over the 8-device global mesh equals the
 single-process 8-device sweep under fixed keys.
 
 This is the validation the reference never needed (single-process
-library) and SURVEY §5 requires of the TPU build: per-row keys fold in
+library) and SURVEY §5 requires of the accelerator build: per-row keys fold in
 GLOBAL row indices, so the draws are layout- AND process-count-
 independent; suff-stat psums are integer or small-f32 sums whose
 cross-process reduction matches single-process bitwise at these sizes.
@@ -145,8 +145,7 @@ def test_multiprocess_runner_with_checkpoint(tmp_path):
 
 
 def test_multiprocess_2d_mesh_equals_single_process(tmp_path):
-    """rows over hosts (DCN axis) x components within each host (ICI
-    axis): the 2-process 2x4 mesh argmax sweep equals the single-process
+    """rows over hosts x components within each host: the 2-process 2x4 mesh argmax sweep equals the single-process
     2x4 mesh sweep exactly."""
     out_path = str(tmp_path / 'mp2d.npz')
     _run_group_mode(2, 4, out_path, '2d')

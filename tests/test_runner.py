@@ -180,27 +180,26 @@ def _mesh_problem(R, seed=0):
     return spec, shareds, values, labels
 
 
-def test_runner_mesh_fused_path(monkeypatch):
-    """use_pallas + mesh routes to the fused per-shard kernel when the
-    spec/tiling allow (sampling='cdf_host' is CPU-eligible)."""
+def test_runner_mesh_path(monkeypatch):
+    """With a mesh, every step goes through the row-sharded XLA sweep on
+    the 8-device CPU mesh, and the chain finds the two clusters."""
     from distributions_tpu.parallel import sharding
     spec, shareds, values, labels = _mesh_problem(R=8192)
     mesh = sharding.make_mesh()
     cl = clustering.PitmanYor.from_dict({'alpha': 1., 'd': .1})
 
     calls = []
-    orig = sharding.sharded_sweep_fused
+    orig = sharding.sharded_sweep_blocked
 
     def spy(*a, **k):
         calls.append(1)
         return orig(*a, **k)
-    monkeypatch.setattr(sharding, 'sharded_sweep_fused', spy)
+    monkeypatch.setattr(sharding, 'sharded_sweep_blocked', spy)
 
     state, an, log = runner.run_gibbs(
         spec, cl, shareds, values, jax.random.PRNGKey(0), passes=6,
-        block=512, init='random:8', mesh=mesh, use_pallas=True,
-        sampling='cdf_host', grow_headroom=0.0)
-    assert len(calls) == 6, 'fused sharded path must engage'
+        block=512, init='random:8', mesh=mesh, grow_headroom=0.0)
+    assert len(calls) == 6, 'sharded path must run every sweep'
     assert len(log.rows) == 6
     R = 8192
     assert int(np.asarray(state.counts).sum()) == R
@@ -211,15 +210,14 @@ def test_runner_mesh_fused_path(monkeypatch):
 
 
 def test_runner_mesh_xla_fallback():
-    """Tilings the kernel cannot take fall back to the XLA sharded sweep."""
+    """A small block (many tiles per device) on the mesh still mixes."""
     from distributions_tpu.parallel import sharding
     spec, shareds, values, labels = _mesh_problem(R=1024)
     mesh = sharding.make_mesh()
     cl = clustering.PitmanYor.from_dict({'alpha': 1., 'd': .1})
     state, an, log = runner.run_gibbs(
         spec, cl, shareds, values, jax.random.PRNGKey(0), passes=8,
-        block=32, init='random:8', mesh=mesh, use_pallas=True,
-        sampling='cdf_host', grow_headroom=0.0)
+        block=32, init='random:8', mesh=mesh, grow_headroom=0.0)
     assert len(log.rows) == 8
     a = np.asarray(an)
     purity = sum(np.bincount(labels[a == g]).max()
@@ -392,17 +390,16 @@ def test_runner_sweeps_per_step_hyper_boundary(tmp_path):
     assert int(state.sample_size) == 128
 
 
-def test_runner_mesh_fused_sweeps_per_step():
-    """Mesh + fused kernel path honors sweeps_per_step (n_sweeps scan in
-    one program per step)."""
+def test_runner_mesh_sweeps_per_step():
+    """The mesh path honors sweeps_per_step: one logger row per step."""
     from distributions_tpu.parallel import sharding
     spec, shareds, values, labels = _mesh_problem(R=8192)
     mesh = sharding.make_mesh()
     cl = clustering.PitmanYor.from_dict({'alpha': 1., 'd': .1})
     state, an, log = runner.run_gibbs(
         spec, cl, shareds, values, jax.random.PRNGKey(0), passes=6,
-        block=512, init='random:8', mesh=mesh, use_pallas=True,
-        sampling='cdf_host', grow_headroom=0.0, sweeps_per_step=3)
+        block=512, init='random:8', mesh=mesh, grow_headroom=0.0,
+        sweeps_per_step=3)
     assert [r['sweeps'] for r in log.rows] == [3, 3]
     R = 8192
     assert int(np.asarray(state.counts).sum()) == R

@@ -52,29 +52,6 @@ def test_2d_argmax_matches_single_device():
     assert int(st2.sample_size) == R
 
 
-def test_2d_fused_argmax_matches_xla_2d():
-    """Fused-kernel 2-D sweep (pallas pair kernel + pmax reduce + XLA
-    stats) equals the XLA 2-D sweep exactly under deterministic argmax.
-    C_local = 512/4 = 128 satisfies the kernel's lane-multiple rule."""
-    spec, shareds, values, assignments, _ = _saturated_problem(
-        R=1024, C=512)
-    state = mx.state_from_assignments(spec, PY, shareds, values, assignments)
-    mesh = sharding.make_mesh_2d(2, 4)
-    sstate = sharding.shard_state_components(state, mesh)
-
-    st_f, an_f = sharding.sharded_sweep_2d_fused(
-        spec, PY, shareds, sstate, values, assignments,
-        jax.random.PRNGKey(0), mesh, 512, block_rows=128,
-        sampling='argmax')
-    st_x, an_x = sharding.sharded_sweep_2d(
-        spec, PY, shareds, sstate, values, assignments,
-        jax.random.PRNGKey(0), mesh, 512, sampling='argmax')
-
-    np.testing.assert_array_equal(np.asarray(an_f), np.asarray(an_x))
-    np.testing.assert_array_equal(np.asarray(st_f.counts),
-                                  np.asarray(st_x.counts))
-
-
 def test_2d_gumbel_sweep_invariants_and_purity():
     rng = np.random.RandomState(1)
     R, C, cols = 512, 32, 2
