@@ -2,9 +2,6 @@
 
     python chip_smoke.py                # phases A-D on one card
     python chip_smoke.py --four-cards   # the 4-card mesh comparisons only
-    python chip_smoke.py --tiny         # every phase at toy sizes; also
-                                        # runs on the CPU (a rehearsal,
-                                        # not a measurement)
 
 Phases (each through the public entry points, in this one process):
   A  flagship: inference.runner.run_gibbs at 1,048,576 rows x C=1024 x
@@ -21,8 +18,8 @@ Phases (each through the public entry points, in this one process):
 1-card mesh with a 4x block, and one component-sharded and one 2-D (2x2)
 argmax sweep each against a one-card reference.
 
-Exits nonzero, printing no result line, when JAX finds no GPU (without
---tiny) or when any phase fails.  The last line of standard output is
+Exits nonzero, printing no result line, when JAX finds no GPU or when any
+phase fails.  The last line of standard output is
 {"ok": true, "device": {"platform": ..., "kind": ..., "count": ...}}.
 """
 
@@ -36,18 +33,12 @@ import traceback
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def _sizes(tiny):
-    if tiny:
-        return dict(R_a=8192, C_a=256, block_a=4096, R_b=4096, C_b=64,
-                    block_b=1024, C_hp=128, rows_hp=256, R_4=8192,
-                    block_4=1024, R_c=2048, C_c=64, block_c=512)
-    return dict(R_a=1 << 20, C_a=1024, block_a=131072, R_b=262144,
-                C_b=256, block_b=32768, C_hp=1024, rows_hp=4096,
-                R_4=1 << 22, block_4=131072, R_c=262144, C_c=1024,
-                block_c=32768)
+SIZES = dict(R_a=1 << 20, C_a=1024, block_a=131072, R_b=262144, C_b=256,
+             block_b=32768, C_hp=1024, rows_hp=4096, R_4=1 << 22,
+             block_4=131072, R_c=262144, C_c=1024, block_c=32768)
 
 
-def phase_a(S, card):
+def phase_a(S=SIZES, card=None):
     import jax
     from distributions_tpu import checks
     from distributions_tpu.inference import runner
@@ -72,7 +63,7 @@ def phase_a(S, card):
     return res
 
 
-def phase_b(S, card):
+def phase_b(S=SIZES, card=None):
     import jax
     import jax.numpy as jnp
     from distributions_tpu import checks, mixture as mx
@@ -97,7 +88,7 @@ def phase_b(S, card):
     return res
 
 
-def phase_c(S, card):
+def phase_c(S=SIZES, card=None):
     try:
         import google.protobuf  # noqa: F401
     except ImportError:
@@ -113,14 +104,14 @@ def phase_c(S, card):
     return res
 
 
-def phase_d(S, card):
+def phase_d(S=SIZES, card=None):
     from distributions_tpu import checks
     res = checks.check_onehot_contraction(S['C_a'], S['block_a'])
     res['card'] = card
     return res
 
 
-def phase_four(S, card):
+def phase_four(S=SIZES, card=None):
     import jax
     from distributions_tpu import checks
     devices = jax.devices()
@@ -147,20 +138,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--four-cards', action='store_true',
                     help='run only the 4-card mesh comparisons')
-    ap.add_argument('--tiny', action='store_true',
-                    help='toy sizes; allowed on the CPU')
     args = ap.parse_args(argv)
 
-    import jax
-    devices = jax.devices()
-    if devices[0].platform != 'gpu' and not args.tiny:
-        print('chip_smoke: no GPU (JAX platform %r)'
-              % devices[0].platform, file=sys.stderr)
-        return 2
     from distributions_tpu import runtime
+    runtime.require_gpu()
     runtime.enable_compile_cache()
     card = runtime.card_line()
-    S = _sizes(args.tiny)
     phases = ([('four_cards', phase_four)] if args.four_cards else
               [('A', phase_a), ('B', phase_b), ('C', phase_c),
                ('D', phase_d)])
@@ -168,7 +151,7 @@ def main(argv=None):
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
-            res = fn(S, card)
+            res = fn(SIZES, card)
             status = 'ok'
         except Exception:   # report every phase, then fail the run
             traceback.print_exc()

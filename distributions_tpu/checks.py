@@ -374,54 +374,48 @@ def first_tile_reference(spec, cl_model, shareds, state, values,
 
 
 def blocked_argmax_reference(spec, cl_model, shareds, state, values,
-                             assignments, block, n_row_shards=1):
+                             assignments, block, n_row_shards=1,
+                             n_slot_shards=1):
     """One blocked sweep with deterministic argmax draws on one device
     (remove tile, score, argmax, add tile, tile after tile, with the
     tiles of a sweep over `n_row_shards` row shards) — the reference for
-    component- and 2-D-sharded argmax sweeps.  Returns (state,
-    assignments, gap): gap[r] is row r's best score minus its second
-    best, the margin a last-bit difference in scoring would have to
-    cross to change the draw."""
+    component- and 2-D-sharded argmax sweeps.  A sweep whose slots are
+    split into `n_slot_shards` contiguous ranges reserves `spec.empties`
+    empty slots in each range, and the seating score of an empty slot
+    splits its mass over all reserved empties; the reference keeps the
+    same alive set after every removal.  Returns (state, assignments,
+    gap, events): gap[r] is row r's best score minus its second best,
+    the margin a last-bit difference in scoring would have to cross to
+    change the draw; events counts the occupied slots that a removal
+    emptied and the rows that drew a slot left empty by the removal of
+    their tile."""
     R = int(assignments.shape[0])
     an = np.array(jax.device_get(assignments))
     gap = np.zeros(R)
+    occupied = np.asarray(state.counts) > 0
+    emptied = np.zeros_like(occupied)
+    empty_draws = 0
     for t in range(R // (n_row_shards * block)):
         rows = tile_rows(R, n_row_shards, block, t)
         idx = jnp.asarray(rows)
         tv = tuple(jnp.asarray(v)[idx] for v in values)
         state = mx.remove_tile(spec, cl_model, shareds, state, tv,
                                jnp.asarray(an)[idx])
+        if n_slot_shards > 1:
+            alive = jax.vmap(mx._recompute_alive, in_axes=(0, None))(
+                state.counts.reshape(n_slot_shards, -1), spec.empties)
+            state = state._replace(alive=alive.reshape(-1))
+        emptied |= occupied & (np.asarray(state.counts) == 0)
         scores = mx.score_batch(spec, cl_model, shareds, state, tv)
         new = jnp.argmax(scores, axis=1).astype(jnp.int32)
         top2 = jax.lax.top_k(scores, 2)[0]
+        empty_draws += int(jnp.sum(state.counts[new] == 0))
         state = mx.add_tile(spec, cl_model, shareds, state, tv, new)
         an[rows] = np.asarray(new)
         gap[rows] = np.asarray(top2[:, 0] - top2[:, 1], np.float64)
-    return state, an, gap
-
-
-def saturated_problem(R, C, seed=0, quantum=1.0 / 16):
-    """Every slot occupied by a tight cluster (labels cover all C slots)
-    whose 2-D center sits on a grid at least 4 noise widths from its
-    neighbours, values on a 1/16 grid so every stat sum is exact.  No
-    slot empties during a sweep, so per-shard and global alive sets
-    coincide (component-sharded sweeps reserve their empty slots per
-    shard) and sharded argmax sweeps can be compared with the one-device
-    sweep row for row."""
-    rng = np.random.RandomState(seed)
-    spec = mx.make_spec([(nich, 2)], capacity=C, empties=1)
-    cl = clustering.PitmanYor.from_dict(FLAGSHIP_CL)
-    shareds = (nich.shared_from_dict(
-        {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.1, 'nu': 1.}),)
-    labels = np.concatenate([np.arange(C), rng.randint(0, C, R - C)])
-    rng.shuffle(labels)
-    side = int(np.ceil(np.sqrt(C)))
-    axis = np.linspace(-6.5, 6.5, side)
-    centers = np.stack(np.meshgrid(axis, axis), -1).reshape(-1, 2)[:C]
-    X = centers[labels] + 0.1 * rng.randn(R, 2)
-    X = np.clip(np.round(X / quantum) * quantum, -7.0, 7.0)
-    return (spec, cl, shareds, (jnp.asarray(X, jnp.float32),),
-            np.asarray(labels, np.int32))
+    events = {'slots_emptied': int(emptied.sum()),
+              'rows_drawing_an_emptied_slot': empty_draws}
+    return state, an, gap, events
 
 
 def check_row_mesh(devices, R, C, block, sweeps=5):
@@ -478,11 +472,12 @@ def check_row_mesh(devices, R, C, block, sweeps=5):
 ARGMAX_TIE_GAP = 1e-4
 
 
-def _compare_argmax(st, an, st_ref, an_ref, gap):
-    """Sharded argmax sweep vs the one-device reference: equal row for
-    row, except rows whose reference margin is a near-tie
-    (< ARGMAX_TIE_GAP); every count then differs by at most the number
-    of such rows."""
+def _compare_argmax(st, an, ref):
+    """Sharded argmax sweep vs its one-device reference (the
+    blocked_argmax_reference tuple): equal row for row, except rows
+    whose reference margin is a near-tie (< ARGMAX_TIE_GAP); every count
+    then differs by at most the number of such rows."""
+    st_ref, an_ref, gap, events = ref
     an = np.asarray(jax.device_get(an))
     diff = an != an_ref
     n_diff = int(diff.sum())
@@ -493,40 +488,47 @@ def _compare_argmax(st, an, st_ref, an_ref, gap):
     dc = np.abs(np.asarray(jax.device_get(st.counts))
                 - np.asarray(st_ref.counts))
     assert dc.sum() <= 2 * n_diff, 'counts differ beyond the tied rows'
-    return {'rows': int(an.shape[0]), 'differing_rows': n_diff,
-            'largest_margin_of_a_differing_row': worst_gap}
+    return dict(events, rows=int(an.shape[0]), differing_rows=n_diff,
+                largest_margin_of_a_differing_row=worst_gap)
+
+
+def _mesh_problem(R, C):
+    """The flagship data on a 1/16 grid (exact stat sums, so the order of
+    a psum cannot matter) and its state.  A warm-started sweep over it
+    empties slots, which the sharded sweeps reserve per slot range."""
+    spec, cl, sh, values, labels = flagship_problem(R, C, quantum=1.0 / 16)
+    state = mx.state_from_assignments(spec, cl, sh, values,
+                                      jnp.asarray(labels))
+    return spec, cl, sh, values, labels, state
 
 
 def check_component_mesh(devices, R, C, block):
     """One component-sharded argmax sweep (sharding
-    .sharded_sweep_components) against the one-device argmax sweep
+    .sharded_sweep_components) over len(devices) slot ranges against
+    the one-device argmax sweep with the same reserved empties
     (_compare_argmax)."""
     from distributions_tpu.parallel import sharding
-    spec, cl, sh, values, labels = saturated_problem(R, C)
-    state = mx.state_from_assignments(spec, cl, sh, values,
-                                      jnp.asarray(labels))
-    st_ref, an_ref, gap = blocked_argmax_reference(
-        spec, cl, sh, state, values, labels, block)
+    spec, cl, sh, values, labels, state = _mesh_problem(R, C)
+    ref = blocked_argmax_reference(spec, cl, sh, state, values, labels,
+                                   block, n_slot_shards=len(devices))
     cmesh = sharding.make_component_mesh(devices)
     st, an = sharding.sharded_sweep_components(
         spec, cl, sh, state, values, jnp.asarray(labels),
         jax.random.PRNGKey(0), cmesh, block, sampling='argmax')
-    return _compare_argmax(st, an, st_ref, an_ref, gap)
+    return _compare_argmax(st, an, ref)
 
 
 def check_2d_mesh(devices, R, C, block):
     """One argmax sweep on a 2x2 ('rows' x 'components') mesh (sharding
     .sharded_sweep_2d) against the one-device argmax sweep with the same
-    tiles (_compare_argmax)."""
+    tiles and reserved empties (_compare_argmax)."""
     from distributions_tpu.parallel import sharding
-    spec, cl, sh, values, labels = saturated_problem(R, C)
-    state = mx.state_from_assignments(spec, cl, sh, values,
-                                      jnp.asarray(labels))
-    st_ref, an_ref, gap = blocked_argmax_reference(
-        spec, cl, sh, state, values, labels, block, n_row_shards=2)
+    spec, cl, sh, values, labels, state = _mesh_problem(R, C)
+    ref = blocked_argmax_reference(spec, cl, sh, state, values, labels,
+                                   block, n_row_shards=2, n_slot_shards=2)
     mesh = sharding.make_mesh_2d(2, 2, devices)
     st, an = sharding.sharded_sweep_2d(
         spec, cl, sh, sharding.shard_state_components(state, mesh), values,
         jnp.asarray(labels), jax.random.PRNGKey(0), mesh, block,
         sampling='argmax')
-    return _compare_argmax(st, an, st_ref, an_ref, gap)
+    return _compare_argmax(st, an, ref)

@@ -48,8 +48,9 @@ def card_line():
 
 
 def require_gpu():
-    """Exit (status 2) unless JAX's default device is a GPU: measurement
-    paths never fall back to the CPU.  Returns jax.devices()."""
+    """Exit with a nonzero status unless JAX's default device is a GPU:
+    measurement paths never fall back to the CPU.  Returns
+    jax.devices()."""
     import jax
     devices = jax.devices()
     if devices[0].platform != 'gpu':

@@ -1,40 +1,11 @@
-"""chip_smoke.py at toy sizes on the CPU: the phases run, the result
-line is printed last, and without --tiny the CPU is refused."""
-
-import json
+"""chip_smoke.py refuses to run without a GPU and prints no result."""
 
 import pytest
 
 
 def test_chip_smoke_refuses_the_cpu(capsys):
     import chip_smoke
-    assert chip_smoke.main([]) == 2
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.main([])
+    assert exc.value.code != 0
     assert '"ok"' not in capsys.readouterr().out
-
-
-@pytest.fixture
-def smoke(monkeypatch):
-    """chip_smoke with the compile cache left untouched."""
-    import chip_smoke
-    from distributions_tpu import runtime
-    monkeypatch.setattr(runtime, 'enable_compile_cache', lambda: None)
-    return chip_smoke
-
-
-def test_chip_smoke_tiny_phases(smoke, capsys):
-    chip_smoke = smoke
-    assert chip_smoke.main(['--tiny']) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert [ln.split(':')[0] for ln in lines[:4]] == [
-        'phase A', 'phase B', 'phase C', 'phase D']
-    assert all(' ok ' in ln for ln in lines[:4])
-    last = json.loads(lines[-1])
-    assert last['ok'] is True and last['device']['platform'] == 'cpu'
-
-
-def test_chip_smoke_tiny_four_cards(smoke, capsys):
-    chip_smoke = smoke
-    assert chip_smoke.main(['--tiny', '--four-cards']) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert any(ln.startswith('phase four_cards: ok') for ln in lines)
-    assert json.loads(lines[-1])['ok'] is True

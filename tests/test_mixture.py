@@ -299,10 +299,11 @@ def test_log_predictive_matches_score_data_chain_rule():
 
 
 def test_exact_onehot_matmul_is_exact():
-    """The hi/mid/lo bf16 split contraction must equal a float64 reference
-    to within one f32 ulp of each output (a default-precision f32 matmul
-    may run in TF32 on the GPU — this helper is what keeps the stat sums
-    exact; see models/base.exact_onehot_matmul)."""
+    """The one-hot contraction (a Precision.HIGHEST matmul) must equal a
+    float64 reference to within one f32 ulp of each output (a
+    default-precision f32 matmul may run in TF32 on the GPU — this helper
+    is what keeps the stat sums exact; see
+    models/base.exact_onehot_matmul)."""
     import numpy as np
     from distributions_tpu.models import base
 
